@@ -9,3 +9,5 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: multi-device subprocess tests")
+    config.addinivalue_line("markers",
+                            "cuda: needs a CUDA device; skips without one")
